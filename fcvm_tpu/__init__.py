@@ -1,18 +1,18 @@
-"""fcVM-TPU: TPU-native finite-element collapse analysis framework.
+"""fcvm_tpu: finite-element collapse analysis on JAX/XLA accelerators.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of the fcVM-workbench
+A ground-up JAX/XLA rebuild of the capabilities of the fcVM-workbench
 (von Mises elastoplastic collapse analysis of tet10 meshes with optional
 geometric nonlinearity, Riks arc-length control, linear buckling and
 imperfection seeding, damage/ductility tracking, and full post-processing).
 
-Architecture (TPU-first, not a port):
+Architecture (accelerator-first, not a port):
 
 * Element integration, stress return and damage updates are batched over all
-  (element, gauss-point) pairs with ``vmap`` + ``jit`` so the MXU/VPU see one
+  (element, gauss-point) pairs with ``vmap`` + ``jit`` so the device sees one
   large regular computation instead of the reference's sequential numba loops
   (reference: ``source code/fcVM.py:620-816, 2196-2492``).
 * The sparse direct Cholesky backends of the reference
-  (``source code/fcVM.py:66-71``) are replaced by a TPU-resident matrix-free
+  (``source code/fcVM.py:66-71``) are replaced by a device-resident matrix-free
   preconditioned conjugate-gradient solver: gather -> per-element 30x30 block
   matmul -> scatter-add (``fcvm_tpu.ops.solver``).
 * Multi-chip scaling shards the element partition over a

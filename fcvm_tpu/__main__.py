@@ -60,12 +60,13 @@ def main(argv=None):
             "--distributed", action="store_true",
             help="multi-host SPMD: call jax.distributed.initialize() so the "
             "device mesh spans every process (launch the same command on "
-            "each host; on TPU pods the coordinator is auto-detected)",
+            "each host, e.g. one process per GPU host)",
         )
         p.add_argument(
             "--coordinator", default=None, metavar="HOST:PORT",
-            help="with --distributed off TPU pods: coordinator address "
-            "(also needs --num-processes / --process-id)",
+            help="with --distributed: coordinator address, e.g. "
+            "localhost:1234 on one host (also needs --num-processes / "
+            "--process-id; GPU hosts do not auto-detect a cluster)",
         )
         p.add_argument("--num-processes", type=int, default=None)
         p.add_argument("--process-id", type=int, default=None)

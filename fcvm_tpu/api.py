@@ -9,6 +9,7 @@ fields over named edge/face groups into a ``.avr`` report.
 
 from __future__ import annotations
 
+import importlib.util
 import time
 from pathlib import Path
 from typing import Optional
@@ -69,7 +70,11 @@ def run_analysis(
             params.sig_yield,
         )
         t["vtk"] = time.time() - t0
-        if save_plots:
+        if save_plots and importlib.util.find_spec("matplotlib") is None:
+            # the plots are an optional extra (pyproject "viz"); the
+            # .out/.vtk results above are complete without them
+            (progress or print)("plots skipped: matplotlib is not installed")
+        elif save_plots:
             from fcvm_tpu.runtime.plots import save_curves
             from fcvm_tpu.runtime.viz import save_result_views
 

@@ -3,7 +3,7 @@
 // Native replacement for the reference's C++ host layer (FreeCAD/SMESH mesh
 // queries, source code/fcVM.py:122-347): tet10 mesh parsers (Gmsh ASCII
 // v2.2/v4.1, UNV 2411/2412), reverse-Cuthill-McKee bandwidth reduction (node
-// locality for the TPU windowed gather/scatter kernels), and adjacency
+// locality for the device-side windowed gather/scatter kernels), and adjacency
 // counts.  Exposed through a plain C ABI consumed via ctypes; the Python
 // side falls back to pure-numpy implementations when this library is not
 // built.

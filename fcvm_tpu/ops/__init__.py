@@ -1,1 +1,1 @@
-"""Batched TPU compute kernels: elements, assembly, solver, material."""
+"""Batched device compute kernels: elements, assembly, solver, material."""

@@ -1,11 +1,10 @@
 """Batched stiffness/tangent blocks, load integration, Dirichlet handling.
 
-TPU-native replacement for the reference's COO triplet assembly
+Matrix-free replacement for the reference's COO triplet assembly
 (``source code/fcVM.py:620-1079``).  Instead of building a scipy CSC matrix
 for a host Cholesky factorization, we keep the per-element 30x30 blocks in
-HBM and expose ``K @ v`` as gather -> batched block matmul -> ``segment_sum``
-scatter-add.  The batched 30x30 matmuls ride the MXU; the scatter is a single
-XLA ``segment_sum``.
+device memory and expose ``K @ v`` as gather -> batched block matmul ->
+node reduce (a gather-only :class:`ScatterPlan`, or XLA ``segment_sum``).
 
 Dirichlet boundary conditions reproduce the reference's elimination scheme
 (``fcVM.py:771-796``): the operator acts as identity on fixed dofs and the
@@ -32,9 +31,10 @@ from fcvm_tpu.utils.linalg3 import det3, inv3_spd
 def formation_precision():
     """Einsum precision for element-block formation and geometry.
 
-    Default HIGHEST: at the MXU bf16 default the formed blocks disagree
-    with the full-precision stress-route internal force at ~1e-2 on
-    badly-scaled meshes (measured: the Embankment soil replay diverges).
+    Default HIGHEST: at a reduced-precision f32 default (bf16 passes, or
+    TF32 on a GPU) the formed blocks disagree with the full-precision
+    stress-route internal force at ~1e-2 on badly-scaled meshes (the
+    Embankment soil replay diverged).
     ``config.formation_precision = "default"`` restores the fast path for
     A/B measurement.  Resolved at trace time.
     """
@@ -60,14 +60,14 @@ def _single_elastic_esm(coords_el, dmat):
     det, _, bmat = el.tet10_element_geometry(coords_el)
     w = jnp.asarray(el.W10, dtype=coords_el.dtype)
     scale = w * jnp.abs(det)  # (4,)
-    # esm = sum_g B_g^T D B_g * w_g |J_g|  -- batched MXU matmuls.
-    # HIGHEST precision: at the MXU bf16 default the formed blocks carry
-    # enough relative error on badly-scaled meshes that K@du disagrees
-    # with the (full-precision) stress-route internal force at ~1e-2 —
-    # measured on the Embankment soil replay (TPU f32 step-0 residual
-    # 1.46e-2 vs 9.8e-7 on CPU f32's exact matmuls), where it left
-    # modified-NR diverging.  Formation runs once per tangent refresh,
-    # so the 3-pass cost is per-step, not per-CG-iteration.
+    # esm = sum_g B_g^T D B_g * w_g |J_g|  -- batched matmuls.
+    # HIGHEST precision: at a reduced-precision f32 default the formed
+    # blocks carry enough relative error on badly-scaled meshes that K@du
+    # disagrees with the (full-precision) stress-route internal force at
+    # ~1e-2 — on the Embankment soil replay the f32 step-0 residual was
+    # 1.46e-2 against 9.8e-7 with exact f32 matmuls, and modified-NR
+    # diverged.  Formation runs once per tangent refresh, so the cost is
+    # per-step, not per-CG-iteration.
     hp = formation_precision()
     db = jnp.einsum("kl,gln->gkn", dmat, bmat, precision=hp)
     return jnp.einsum("gkm,gkn,g->mn", bmat, db, scale, precision=hp)
@@ -75,8 +75,10 @@ def _single_elastic_esm(coords_el, dmat):
 
 # Above this element count, per-element block builders switch to chunked
 # lax.map so the (ne, 4, 6, 30) B-matrix intermediates never materialize
-# for the whole mesh at once (the fused whole-mesh vmap OOMed 16 GB HBM at
-# 1.98M dofs / ~470k elements; the block output itself is only 1.7 GB).
+# for the whole mesh at once (the fused whole-mesh vmap ran out of a 16 GB
+# device at 1.98M dofs / ~470k elements, while the block output itself is
+# only 1.7 GB).  The right threshold for the H100's 80 GB is an open
+# measurement.
 ASSEMBLY_CHUNK_THRESHOLD = 262_144
 ASSEMBLY_CHUNK = 65_536
 
@@ -129,7 +131,7 @@ def _single_tangent_esm(coords_el, dmat, sig_el, pgp_el, g3fac):
     fac = jnp.where(pgp_el, g3fac / svm**2, 0.0)  # (4,)
     # D_g = D - fac_g * s_g s_g^T
     dmat_g = dmat[None] - fac[:, None, None] * dev[:, :, None] * dev[:, None, :]
-    # HIGHEST precision: see _single_elastic_esm (measured Embankment trap)
+    # HIGHEST precision: see _single_elastic_esm (the Embankment trap)
     hp = formation_precision()
     db = jnp.einsum("gkl,gln->gkn", dmat_g, bmat, precision=hp)
     return jnp.einsum("gkm,gkn,g->mn", bmat, db, scale, precision=hp)
@@ -171,7 +173,7 @@ def _single_geometric_nsm(coords_el, sig_el):
     w = jnp.asarray(el.W10, dtype=coords_el.dtype)
     scale = w * jnp.abs(det)
     s = voigt_to_tensor(sig_el)  # (4, 3, 3)
-    # HIGHEST precision: see _single_elastic_esm (measured Embankment trap)
+    # HIGHEST precision: see _single_elastic_esm (the Embankment trap)
     m = jnp.einsum(
         "gij,gik,gkl,g->jl", dshpg, s, dshpg, scale,
         precision=formation_precision(),
@@ -216,8 +218,9 @@ def gravity_load_and_gp_coords(coords_eff, elnodes, density, grav, ndof):
     shp = jnp.asarray(el.SHP10_AT_GP, dtype=coords_eff.dtype)  # (4, 10)
     w = jnp.asarray(el.W10, dtype=coords_eff.dtype)
     # HIGHEST precision: the load vector sets the residual normalization —
-    # bf16-default geometry here would perturb the applied loads themselves
-    # by ~1e-3 at f32 (a model error, not a solver error).  One-time cost.
+    # reduced-precision geometry here would perturb the applied loads
+    # themselves by ~1e-3 at f32 (a model error, not a solver error).
+    # One-time cost.
     hp = jax.lax.Precision.HIGHEST
     xs = jnp.einsum("eki,gjk->egij", coords_el, dshp, precision=hp)
     det = det3(xs)  # (ne, 4)
@@ -324,12 +327,13 @@ def vertex_loads(vertices, forces, ndof, dtype):
 class ScatterPlan(NamedTuple):
     """Degree-bucketed incidence tables: node scatter-add as pure gathers.
 
-    TPU scatter-add runs ~8x slower than gather for the same index count
-    (measured on v5e: 16 ms vs 3.5 ms for 1.18M node rows at 500k dofs).
-    The plan inverts the (element, slot) -> node map at build time: for each
-    node, the positions of its incident rows in the flat ``(ne*10, 3)``
-    value stream, padded to a per-bucket fixed degree.  Applying it is a
-    fixed gather + small-axis sum + permutation gather — no scatter at all.
+    The plan was written for an accelerator whose scatter-add ran several
+    times slower than a gather of the same index count; whether it beats
+    ``segment_sum`` on the H100 is an open measurement.  The plan inverts the
+    (element, slot) -> node map at build time: for each node, the positions of
+    its incident rows in the flat ``(ne*10, 3)`` value stream, padded to a
+    per-bucket fixed degree.  Applying it is a fixed gather + small-axis sum +
+    permutation gather — no scatter at all.
 
     Buckets group nodes by incidence degree so padding stays <15% (tet10
     midside nodes have ~4-6 incident elements, corners up to ~24+).
@@ -495,17 +499,17 @@ def scatter_node_rows_padded(rows, incs, invperm):
 def resolve_matvec_precision(ndof: int):
     """The einsum precision for a ``K @ v`` operator of this size.
 
-    TPU f32 einsums default to fast bf16 MXU passes (~1e-3-class relative
-    noise).  For the CG correction solves that noise bounds the achievable
-    Newton residual: measured on the Embankment corpus replay (81k dof,
-    ``error_max`` 1e-2) the default-precision operator leaves modified-NR
-    *diverging* geometrically (~×1.08/iter) where CPU f32 — exact f32
-    matmuls — converges every step without a restart.  Full f32 precision
-    (3 MXU passes) fixes small meshes at ~3x the einsum cost, which at
-    <~0.2M dof is noise against the gather-dominated iteration; at bench
-    scale (499k dof) the einsum is ~0.65 of 13.4 ms, so the fast path
-    stays the default there and the f64 tier (via the automatic precision
-    failover) covers the rare hard case.
+    An accelerator's default f32 einsum may run in reduced precision (bf16
+    passes, or TF32 on a GPU: ~1e-3-class relative noise).  For the CG
+    correction solves that noise bounds the achievable Newton residual: on
+    the Embankment corpus replay (81k dof, ``error_max`` 1e-2) a
+    reduced-precision operator left modified-NR *diverging* geometrically
+    (~×1.08/iter) where CPU f32 — exact f32 matmuls — converges every step
+    without a restart.  Full f32 precision fixes small meshes; above
+    ``matvec_hp_max_dof`` the device default stays, a cost trade made on
+    the first accelerator, and the f64 tier (via the automatic precision
+    failover) covers the rare hard case.  What the default does on the
+    H100 is recorded in PERF.md.
 
     ``config.matvec_precision``: "auto" (HIGHEST below
     ``matvec_hp_max_dof``, default above), "highest", "default".
@@ -531,17 +535,16 @@ def make_matvec(
 ):
     """Raw ``K @ v`` from element blocks: gather -> block matmul -> scatter.
 
-    Node-row granularity: TPU gather/scatter cost is per *index*, so moving
-    3-vectors per node instead of scalars per dof cuts the index count 3x
-    (measured 4.4x end-to-end on v5e at 273k dofs).  Requires ``ndof``
-    divisible by 3 (guaranteed by the 384-alignment padding).
+    Node-row granularity: gather/scatter cost scales with the *index*
+    count, so moving 3-vectors per node instead of scalars per dof cuts the
+    index count 3x.  Requires ``ndof`` divisible by 3 (guaranteed by the
+    384-alignment padding).
 
-    With a :class:`ScatterPlan` the scatter-add becomes pure gathers,
-    1.86x faster end-to-end on v5e at 500k dofs (23.3 -> 12.5 ms).
+    With a :class:`ScatterPlan` the scatter-add becomes pure gathers.
 
     ``precision`` defaults to :func:`resolve_matvec_precision` — full f32
-    einsum precision on small meshes, where the bf16 MXU default's noise
-    otherwise floors (or diverges) the Newton loop.
+    einsum precision on small meshes, where a reduced-precision default's
+    noise otherwise floors (or diverges) the Newton loop.
     """
     ne = esm.shape[0]
     elnodes = eldofs[:, ::3] // 3  # (ne, 10) node ids
@@ -588,7 +591,8 @@ def make_bc_matvec(
 
     ``precision`` overrides :func:`resolve_matvec_precision` — the driver's
     HP-escalation tier passes ``HIGHEST`` when an f32 Newton attempt above
-    ``matvec_hp_max_dof`` stagnates on bf16 CG-correction noise.
+    ``matvec_hp_max_dof`` stagnates on reduced-precision CG-correction
+    noise.
     """
     ndof = fixmask.shape[0]
     kv = make_matvec(esm, eldofs, ndof, plan, precision=precision)

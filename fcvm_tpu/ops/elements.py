@@ -1,4 +1,4 @@
-"""Tet10 / tri6 / line3 element kernels, batched for the TPU vector units.
+"""Tet10 / tri6 / line3 element kernels, batched for the accelerator.
 
 The reference implements these as scalar numba loops with hand-unrolled 3x3
 inverses (``source code/fcVM.py:351-613``).  Here every function is a pure
@@ -132,12 +132,12 @@ def tet10_element_geometry(coords_el: jnp.ndarray):
     dshp = jnp.asarray(DSHP10_AT_GP, dtype=coords_el.dtype)
     # HIGHEST precision: the stress/residual path computes this geometry
     # under a default_matmul_precision("highest") context while the
-    # assembly path (vmapped/chunked differently) would run it at the MXU
-    # bf16 default — giving TWO different B matrices for the same element
-    # and an operator-vs-internal-force inconsistency that floors (and on
-    # the Embankment soil replay, diverges) the f32 Newton loop at ~1e-2.
-    # Pinning HIGHEST here keeps every caller bit-consistent; the cost is
-    # per-assembly/per-residual, not per-CG-iteration.
+    # assembly path (vmapped/chunked differently) would run it at the
+    # device's reduced-precision f32 default — giving TWO different B matrices
+    # for the same element and an operator-vs-internal-force inconsistency that
+    # floors (and on the Embankment soil replay, diverges) the f32 Newton loop
+    # at ~1e-2. Pinning HIGHEST here keeps every caller bit-consistent; the
+    # cost is per-assembly/per-residual, not per-CG-iteration.
     from fcvm_tpu.ops.assembly import formation_precision
 
     hp = formation_precision()

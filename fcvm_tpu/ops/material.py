@@ -1,6 +1,6 @@
 """Constitutive model: linear elasticity + von Mises radial return + damage.
 
-TPU-native form of the reference's material routines:
+Batched device form of the reference's material routines:
 
 * ``hooke``      -> :func:`hooke_dmat`            (``fcVM.py:570-582``)
 * ``vmises_original_optimised`` -> :func:`radial_return`  (``fcVM.py:2468-2492``)

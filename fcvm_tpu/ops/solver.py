@@ -1,13 +1,12 @@
-"""TPU-resident linear solvers.
+"""Device-resident linear solvers.
 
 The reference factorizes the sparse global stiffness matrix with one of three
-host Cholesky backends (``source code/fcVM.py:66-71, 1120-1135``).  Sparse
-direct factorization does not map to the TPU, so the primary backend here is
-a matrix-free preconditioned conjugate-gradient solver whose ``K @ v`` is the
-gather/block-matmul/scatter operator from :mod:`fcvm_tpu.ops.assembly` and
-whose preconditioner is the 3x3 nodal block-Jacobi inverse.  The whole Krylov
-loop runs on device inside ``lax.while_loop``; only the converged solution
-crosses back to the host.
+host Cholesky backends (``source code/fcVM.py:66-71, 1120-1135``).  Here the
+primary backend is a matrix-free preconditioned conjugate-gradient solver
+whose ``K @ v`` is the gather/block-matmul/scatter operator from
+:mod:`fcvm_tpu.ops.assembly` and whose preconditioner is the 3x3 nodal
+block-Jacobi inverse.  The whole Krylov loop runs on device inside
+``lax.while_loop``; only the converged solution crosses back to the host.
 
 A scipy sparse-direct backend is kept for CPU validation/debugging, mirroring
 the reference's backend-selection tier.

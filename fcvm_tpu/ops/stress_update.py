@@ -1,6 +1,6 @@
 """Stress update and internal force: the per-iteration hot kernel.
 
-Batched TPU form of the reference's ``update_stress_load``
+Batched device form of the reference's ``update_stress_load``
 (``source code/fcVM.py:2196-2464``): per Gauss point, recompute the
 B-matrix on (optionally deformed) coordinates, form the strain increment
 ``deps = B du``, convect the old stress through the incremental deformation
@@ -44,18 +44,17 @@ def _element_stress_update(
     coords_el, u_el, du_el, sig_old_el, sig_yield_el, dmat, h, g, large_disp
 ):
     """One element: returns (sig_new (4,6), sig_test (4,6), pgp (4,), elv (30,))."""
-    # Full f32 matmul precision is REQUIRED here (third instance of the
-    # TPU trap, docs/PERFORMANCE.md): at the MXU default (bf16 passes) the
-    # internal force B^T sigma carries O(1e-3) relative error, which is a
-    # floor on the Newton residual ||r||/||q|| — observed on hardware as
-    # an error plateau at ~1e-3 that restarts cannot break (the
-    # imperfect-column example at error_max 1e-5 exhausted all 4 restarts
-    # and produced an empty history; CPU f32, whose f32 matmuls are exact,
-    # converges the same case to 1e-5 in <=5 iterations).  Residual
-    # ACCURACY sets the achievable convergence; the CG operator's bf16
-    # passes only affect the rate, so assembly/matvec stay at the fast
-    # default.  The context is trace-time and also covers the
-    # tet10_element_geometry matmuls below.
+    # Full f32 matmul precision is REQUIRED here: at an accelerator's
+    # reduced-precision default for f32 dots (bf16 passes, or TF32 on a
+    # GPU) the internal force B^T sigma carries O(1e-3) relative error,
+    # which is a floor on the Newton residual ||r||/||q|| — an error
+    # plateau that restarts cannot break (CPU f32, whose f32 matmuls are
+    # exact, converges the imperfect-column example to 1e-5 in <= 5
+    # iterations).  Residual ACCURACY sets the achievable convergence; the
+    # CG operator's precision only affects the rate, so assembly/matvec
+    # keep their own setting (ops/assembly.resolve_matvec_precision).  The
+    # context is trace-time and also covers the tet10_element_geometry
+    # matmuls below.
     with jax.default_matmul_precision("highest"):
         return _element_stress_update_hp(
             coords_el, u_el, du_el, sig_old_el, sig_yield_el, dmat, h, g,

@@ -1,7 +1,7 @@
 """On-disk analysis checkpointing (new capability vs the reference).
 
 The reference supports only in-session continuation through its interactive
-plot loop (``source code/fcVM.py:1659-1686``); batch TPU runs need real
+plot loop (``source code/fcVM.py:1659-1686``); batch runs need real
 state persistence.  A checkpoint stores the full per-Gauss-point state
 (stress, yield stress, PEEQ, CSR), the displacement field and the load-level
 history, versioned per converged step, in a single ``.npz`` per step.

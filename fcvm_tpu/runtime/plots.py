@@ -2,7 +2,7 @@
 
 The reference pops an interactive matplotlib window mid-analysis with
 load-displacement and CSR/PEEQ-vs-LF curves plus elastic-limit and rupture
-markers (``source code/fcVM.py:1638-2080``).  Batch TPU runs are headless,
+markers (``source code/fcVM.py:1638-2080``).  Batch runs are headless,
 so this renders the same two panels to a PNG; the interactive continue /
 add / reverse controls map to the driver's ``continuation`` callback.
 """

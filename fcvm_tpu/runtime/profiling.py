@@ -4,7 +4,7 @@ The reference brackets sparse construction / factorization / solves with
 ``time.perf_counter()`` and prints a 7-line phase summary
 (``source code/fcVM.py:1110-1140, 1620-1624``; ``fcVM.FCMacro:200-210``).
 This module reproduces that as a reusable context-manager registry and adds
-``jax.profiler`` trace capture for TPU timeline analysis.
+``jax.profiler`` trace capture for device timeline analysis.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ class PhaseTimers:
 
 @contextlib.contextmanager
 def device_trace(logdir: str):
-    """Capture a jax.profiler trace (TPU timeline) around a block."""
+    """Capture a jax.profiler trace (device timeline) around a block."""
     import jax
 
     jax.profiler.start_trace(logdir)

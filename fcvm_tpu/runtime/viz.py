@@ -7,7 +7,7 @@ clip-plane panes (CSR / PEEQ / von Mises / triaxiality), the ``PSV``
 principal-stress-vector glyph view with log scaling, and the orbital-path
 GIF writer — re-designed for batch runs: static PNGs (and an optional GIF)
 written next to the ``.out`` report instead of an interactive Qt window.
-Host-side matplotlib only; no TPU work and no pyvista dependency.
+Host-side matplotlib only; no device work and no pyvista dependency.
 
 Clip rendering: the kept half-space's closed surface is the set of corner
 tri faces that belong to exactly one kept element (outer skin + the jagged

@@ -1,12 +1,12 @@
-"""Dof-vector padding for TPU gather/scatter alignment.
+"""Dof-vector padding for gather/scatter alignment.
 
-TPU dynamic gathers and scatter-adds fall off a ~400x performance cliff when
-the source (gather) or output (scatter) vector length is not a multiple of
-the native tile: measured 17 ms vs 0.04 ms for a 1.9M-index gather at 273k
-dofs.  ``ndof = 3 * nn`` is generically odd, so every dof vector in the
-solver is padded to a multiple of 384 = 3 * 128 (keeping ``nn_pad = ndof/3``
-integral and lane-aligned).  Padding dofs carry ``fixmask = 0`` and zero
-loads, so they behave as decoupled identity rows of ``K_hat``.
+Every dof vector in the solver is padded to a multiple of 384 = 3 * 128, so
+``nn_pad = ndof/3`` stays integral and node vectors have a length that is a
+multiple of 128 (``ndof = 3 * nn`` is generically odd).  The value was
+chosen for an accelerator whose dynamic gathers and scatter-adds slowed
+sharply on unaligned vector lengths; whether 384 still pays on the H100 is
+an open measurement.  Padding dofs carry ``fixmask = 0`` and zero loads, so
+they behave as decoupled identity rows of ``K_hat`` on any device.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Closed-form batched 3x3 linear algebra.
 
-XLA's generic ``linalg.inv``/``det`` lower to LU decomposition, which the TPU
-backend does not implement for f64 and which would be wasteful at 3x3 anyway.
+XLA's generic ``linalg.inv``/``det`` lower to a batched LU decomposition,
+which would be wasteful at 3x3.
 The reference hand-unrolls the same formulas in numba
 (``source code/fcVM.py:436-453``); here they are written once, batched over
 arbitrary leading dimensions, and fused by XLA into the surrounding element

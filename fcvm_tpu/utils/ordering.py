@@ -11,7 +11,7 @@ nodal block-Jacobi smoother, 117 -> 42 with the cluster smoother.
 
 The reference has no analogue — its CHOLMOD factorization picks its own
 fill-reducing permutation internally (``fcVM.py:1121``); this is the
-TPU-native counterpart of that freedom.
+matrix-free counterpart of that freedom.
 """
 
 from __future__ import annotations

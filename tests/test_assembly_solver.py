@@ -359,8 +359,9 @@ def test_pcg_stagnation_exit_stops_at_arithmetic_floor():
 
 def test_matvec_precision_resolution(monkeypatch):
     """resolve_matvec_precision: full f32 einsum precision below the dof
-    threshold (bf16-MXU noise there bounds the Newton loop, measured on the
-    Embankment replay), fast default above, explicit modes forced."""
+    threshold (reduced-precision noise there bounds the Newton loop, seen
+    on the Embankment replay), device default above, explicit modes
+    forced."""
     import jax
     from fcvm_tpu import config as cfgmod
 

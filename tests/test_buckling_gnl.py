@@ -467,7 +467,7 @@ def test_cruciform_imperfect_collapse_below_plastic_limit():
 def test_pencil_residual_validation_catches_wrong_factors():
     """pencil_subspace must reject a finitely-converged NON-eigenpair.
 
-    Observed on the real TPU (slender imperfect-column case): when the f32
+    Observed on an accelerator (slender imperfect-column case): when the f32
     inner solves stall at their arithmetic floor, the subspace iteration
     satisfies its Cauchy exit on factors 51.9/69.3 vs the true 2.23/2.24 —
     all finite, so only the a-posteriori pencil residual (measured O(1)
@@ -514,7 +514,7 @@ def test_pencil_residual_validation_catches_wrong_factors():
 def test_f32_eigensolve_breakdown_fails_over_to_f64(monkeypatch):
     """linear_buckling retries the pipeline in f64 on an f32 breakdown.
 
-    Observed on the real TPU: the slender Euler-column pencil's projected
+    Observed on an accelerator: the slender Euler-column pencil's projected
     Q^T K Q stays indefinite through the ridge ladder at f32 (the f32
     noise floor exceeds the small-eigenvalue block).  The wrapper must
     retry once in float64 and restore the pinned process dtype after."""
@@ -566,7 +566,7 @@ def test_f32_eigensolve_breakdown_fails_over_to_f64(monkeypatch):
 def test_reassembly_ladder_reaches_direct_tier(monkeypatch):
     """buckling_from_arrays walks f32 -> f64 iteration -> f64 re-assembly.
 
-    Measured on the real v5e ("Bar buckling" corpus, cond ~1e10): both
+    Observed on the "Bar buckling" corpus pencil (cond ~1e10): both
     iterative tiers fail the pencil-residual validation because the
     f32-ASSEMBLED operands destroy the small buckling eigenvalues; only
     the f64 re-assembly + host-direct splu tier recovers.  The fake

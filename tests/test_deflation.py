@@ -1,8 +1,8 @@
 """Ritz-deflation recycling (fcvm_tpu.ops.deflation).
 
-The TPU-side motivation is measured in tools/deflate_step_probe.py (499k
-dof: in-step solves 56 -> 40 CG iterations, rebuilt per step because the
-Ritz space is rhs-specific).  These tests validate the machinery in f64
+The motivation is measured in tools/deflate_step_probe.py (499k dof:
+in-step solves 56 -> 40 CG iterations, rebuilt per step because the Ritz
+space is rhs-specific).  These tests validate the machinery in f64
 on CPU: harvested Ritz data produces a correction that (a) leaves solutions
 unchanged to solver tolerance, (b) never increases iteration counts, and
 (c) integrates with the collapse driver without perturbing physics.
@@ -108,6 +108,23 @@ def test_ritz_coefficients_rejects_degenerate():
     assert defl_ops.ritz_coefficients(a, np.ones(8), np.ones(8), 6, 4) is None
 
 
+def test_pinv_psd_keeps_f64_and_matches_numpy(monkeypatch):
+    """f64 Galerkin matrices stay f64 through the eigh on every backend
+    (no downcast off the CPU) and the PSD pseudo-inverse equals numpy's on
+    a rank-deficient matrix."""
+    import jax
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    rng = np.random.default_rng(3)
+    b = rng.normal(size=(12, 7))
+    kw = b @ b.T  # PSD, rank 7 (exactly singular directions)
+    out = defl_ops.pinv_psd(jnp.asarray(kw, jnp.float64))
+    assert out.dtype == jnp.float64
+    ref = np.linalg.pinv(kw, rcond=1e-10, hermitian=True)
+    np.testing.assert_allclose(np.asarray(out), ref,
+                               atol=1e-12 * np.abs(ref).max())
+
+
 def test_driver_deflation_preserves_physics():
     """Recycling forced on (min_iters lowered below this tiny mesh's solve
     counts) must not perturb the converged physics, and the space must be
@@ -168,7 +185,7 @@ def test_driver_deflation_gate_skips_small_solves():
 def test_driver_load_deflation_switch_preserves_physics():
     """The predictor load-space recycling (GNL tangent path) is separately
     switchable: with ``load_deflation`` off the predictor runs on its warm
-    start alone (the TPU-measured equal-iteration policy,
+    start alone (the equal-iteration policy of
     tools/gnl_refresh_probe.py) and the converged physics is unchanged."""
     mesh, model = uniaxial_model(2)
     params = ControlParams(nstep=6, sig_yield=SY0, et_e=0.1,

@@ -1,12 +1,11 @@
 """Fused Newton iteration + HP-matvec escalation + dispatch telemetry.
 
-Round-5 items (VERDICT r4 #1, #3, #7): the steady-state NR iteration runs
-as ONE device program (``runtime/system.newton_iteration``,
-``parallel/system.newton_fn`` — SURVEY.md build-plan step 6, reference
-loop ``fcVM.py:1304-1557``), with host governance at iteration
-granularity; the driver counts its device-program launches; and a
-stagnating f32 attempt above ``matvec_hp_max_dof`` escalates the CG
-matvec to full precision instead of paying the restart ladder
+The steady-state NR iteration runs as ONE device program
+(``runtime/system.newton_iteration``, ``parallel/system.newton_fn`` —
+SURVEY.md build-plan step 6, reference loop ``fcVM.py:1304-1557``), with
+host governance at iteration granularity; the driver counts its device-program
+launches; and a stagnating f32 attempt above ``matvec_hp_max_dof`` escalates
+the CG matvec to full precision instead of paying the restart ladder
 (``fcVM.py:1457-1484`` never restarts on roundoff).
 
 The fused path must reproduce the unfused path's load-displacement
@@ -94,8 +93,9 @@ def test_fused_matches_unfused_geometric_linear(cfg):
 
 
 def test_fused_sharded_matches_local(cfg):
-    """The SPMD fused iteration (element partition, lax.cond around the
-    shard_map tangent refresh) reproduces the local fused history on the
+    """The SPMD fused iteration (element partition, static refresh variant
+    after the shard_map tangent refresh) reproduces the local fused history on
+    the
     8-virtual-device mesh — both collective layouts."""
     model = _tension_model()
     res_l = _run(model)
@@ -148,7 +148,7 @@ def test_scipy_tier_never_fuses(cfg):
 
 
 # ---------------------------------------------------------------------------
-# dispatch telemetry (VERDICT r4 item 7)
+# dispatch telemetry
 # ---------------------------------------------------------------------------
 
 
@@ -165,7 +165,7 @@ def test_dispatch_telemetry_counts_and_logs(cfg):
 
 
 # ---------------------------------------------------------------------------
-# HP-matvec escalation (VERDICT r4 item 3)
+# HP-matvec escalation
 # ---------------------------------------------------------------------------
 
 
@@ -243,7 +243,7 @@ def test_hp_unavailable_below_threshold(cfg, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# continuation-action hygiene (ADVICE r4) + monitor contract
+# continuation-action hygiene + monitor contract
 # ---------------------------------------------------------------------------
 
 
@@ -272,7 +272,7 @@ def test_continuation_all_string_tuple_is_sequence(cfg):
 
 def test_monitor_sees_current_step_history(cfg):
     """The monitor fires AFTER the current step's history scalars are
-    appended (the pre-round-4 contract, ADVICE r4 #1)."""
+    appended."""
     model = _tension_model()
     seen = []
 

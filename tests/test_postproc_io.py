@@ -176,6 +176,39 @@ def test_run_analysis_pipeline(tmp_path):
     assert not res.fail
 
 
+def test_run_analysis_without_matplotlib_skips_plots(tmp_path, monkeypatch):
+    """Without matplotlib the results are still written; the plots are
+    skipped with one line, and the run goes on."""
+    import importlib.util
+
+    real_find_spec = importlib.util.find_spec
+    monkeypatch.setattr(
+        importlib.util, "find_spec",
+        lambda name, *a: None if name == "matplotlib"
+        else real_find_spec(name, *a),
+    )
+    mesh = meshgen.box_tet10(1, 1, 1, L, L, L)
+    bcs = fcvm_tpu.BoundaryConditions.from_node_sets(
+        [(mesh.select_nodes(lambda x, y, z: x < 1e-9), (0.0, 0.0, 0.0))]
+    )
+    faces = mesh.faces_on(lambda x, y, z: x > L - 1e-9)
+    loads = fcvm_tpu.Loads(
+        traction_faces=faces, tractions=np.tile([50.0, 0, 0], (len(faces), 1))
+    )
+    model = fcvm_tpu.Model(mesh, fcvm_tpu.Material(E, NU), bcs, loads,
+                           name="noplot")
+    params = fcvm_tpu.ControlParams(sig_yield=SY0, nstep=2, error_max=1e-8,
+                                    target_lf=1.0)
+    lines = []
+    res = fcvm_tpu.run_analysis(model, params, outdir=str(tmp_path),
+                                progress=lines.append)
+    assert (tmp_path / "noplot.out").exists()
+    assert (tmp_path / "noplot.vtk").exists()
+    assert not (tmp_path / "noplot.png").exists()
+    assert lines.count("plots skipped: matplotlib is not installed") == 1
+    assert not res.fail
+
+
 def test_inp_roundtrip(tmp_path):
     p = ControlParams(sig_yield=100.0, nstep=10, error_max=5e-3, et_e=0.0,
                       target_lf=1.5, gnl="GNLN", max_imp=10.0, ev1=1.0, ev2=0.0)

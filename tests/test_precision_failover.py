@@ -2,7 +2,7 @@
 
 The reference never needs one — its whole pipeline is f64 numpy + CHOLMOD
 (``fcVM.py:1111-1135``; every kernel allocates ``np.float64``).  The
-rebuild's production TPU tier is f32, whose Newton residual has an
+rebuild's production tier is f32, whose Newton residual has an
 arithmetic floor; when ``error_max`` sits below it the driver must not
 thrash the restart ladder against roundoff (reference restart logic:
 ``fcVM.py:1457-1484``).  Two responses, by how far the floor overshoots:

@@ -1,4 +1,4 @@
-"""The coarse-build degradation paths must be LOUD (VERDICT r2 weak #6):
+"""The coarse-build degradation paths must be LOUD:
 a zero-coarse fallback silently costs 4-7x CG iterations, so it has to show
 up in the driver log and cg_stats, not just as a one-shot Python warning."""
 

@@ -2,7 +2,7 @@
 
 A prewarm entry whose aval (shape / dtype / static args) differs from what
 ``build_two_level`` actually calls compiles a *useless* executable and the
-first build pays the multi-MB cache load anyway — so these tests assert
+first build pays the compile anyway — so these tests assert
 signature identity against a real build, including the blocked-Schur
 recursion shapes (exercised with a small ``large_dim_threshold``).
 """
@@ -19,11 +19,9 @@ from fcvm_tpu.models.spec import BoundaryConditions, Loads
 from fcvm_tpu.ops import material as mat
 from fcvm_tpu.ops import precond as pre
 from fcvm_tpu.runtime import system as sysm
-from fcvm_tpu.runtime import prewarm
 from fcvm_tpu.runtime.prewarm import (
     precond_prewarm_entries,
     start_precond_prewarm,
-    start_transfer_opener,
 )
 from fcvm_tpu.utils.indexing import pad_ndof, pad_vector
 
@@ -55,18 +53,6 @@ def _system(n=3, dtype=jnp.float64):
 
 def _sig(x):
     return (tuple(x.shape), jnp.dtype(x.dtype))
-
-
-def test_transfer_opener_runs_once_per_process(monkeypatch):
-    monkeypatch.setattr(prewarm, "_opener_started", False)
-    msgs = []
-    th = start_transfer_opener(log=msgs.append)
-    assert th is not None
-    th.join(timeout=60)
-    assert not th.is_alive()
-    assert msgs and msgs[0].startswith("transfer path opened")
-    # second call in the same process is a no-op
-    assert start_transfer_opener() is None
 
 
 def test_prewarm_entries_match_real_build_inputs():

@@ -85,8 +85,8 @@ def _assert_history_match(r1, r8, tol=1e-10):
 
 
 def test_sharded_plastic_gnl_collapse_matches_single_device():
-    """Full plastic GNL multi-step collapse: the round-2 multi-chip
-    criterion (yielding steps, tangent refreshes, Riks corrections)."""
+    """Full plastic GNL multi-step collapse: the multi-device criterion
+    (yielding steps, tangent refreshes, Riks corrections)."""
     params = ControlParams(
         sig_yield=60.0, nstep=6, error_max=1e-11, et_e=0.1,
         target_lf=99.0, gnl="GNLY", max_imp=0.0,
@@ -100,8 +100,8 @@ def test_sharded_plastic_gnl_collapse_matches_single_device():
 
 def test_force_sharded_one_device_mesh_matches_local():
     """cfg.force_sharded runs ShardedSystem on a 1-device mesh — the
-    single-real-chip validation path for the shard_map kernels (multi-chip
-    hardware is unavailable; bench.py uses this on the v5e)."""
+    one-card validation path for the shard_map kernels (bench.py's
+    sharded_1dev row)."""
     cfg = get_config()
     params = ControlParams(
         sig_yield=60.0, nstep=5, error_max=1e-11, et_e=0.1,
@@ -291,7 +291,7 @@ def test_sharded_fewer_elements_than_devices():
 
 
 # ---------------------------------------------------------------------------
-# Ritz-deflation recycling on the sharded backend (round 2)
+# Ritz-deflation recycling on the sharded backend
 # ---------------------------------------------------------------------------
 
 

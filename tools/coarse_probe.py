@@ -1,4 +1,4 @@
-"""Probe a larger coarse dimension on the TPU (chunked inverse path)."""
+"""Probe a larger coarse dimension on device (chunked inverse path)."""
 import sys, time
 import sys, os; sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np

@@ -1,7 +1,7 @@
 """Deflation pay-or-park: retained-space amortization over a long run.
 
-VERDICT r4 item 5: per-step Ritz-deflation re-harvesting was measured
-perf-neutral at bench scale (the undeflated harvest solve eats the
+Per-step Ritz-deflation re-harvesting was measured perf-neutral at bench
+scale (the undeflated harvest solve eats the
 in-step savings); the retained-space policy's win case is a MANY-step run
 where one harvest amortizes.  This probe runs the production driver for
 >= 10 plastic GNL Riks steps on the 499k-dof box with the recycling on

@@ -9,7 +9,7 @@ rhs — may not benefit.  This probe measures, on the bench mesh/operator:
   2. plastic-residual-rhs solve: iters/time, undeflated vs deflated
   3. converged relres levels of each (the Newton-health question)
 
-Run on the real TPU from the repo root: python tools/deflate_step_probe.py
+Run on the GPU from the repo root: python tools/deflate_step_probe.py
 """
 
 import os

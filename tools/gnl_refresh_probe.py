@@ -1,10 +1,10 @@
-"""Measure the GNL tangent-predictor levers at 499k dof on the real TPU.
+"""Measure the GNL tangent-predictor levers at 499k dof on device.
 
 In the collapse regime every NR iteration runs tangent_refresh (reassembly
 + predictor solve) plus a correction solve.  This probe isolates the
 predictor-solve cost under three policies:
 
-  a) cold:   x0 = 0, undeflated            (pre-round-2 behaviour)
+  a) cold:   x0 = 0, undeflated
   b) warm:   x0 = previous predictor        (successive tangents differ by
              one Newton update; the rtol*||b|| criterion pays directly)
   c) warm+W: warm start + load-rhs-harvested Ritz basis re-Galerkined

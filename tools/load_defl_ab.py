@@ -1,14 +1,14 @@
-"""Driver-level A/B of the predictor load-space recycling on the real TPU.
+"""Driver-level A/B of the predictor load-space recycling on device.
 
 tools/gnl_refresh_probe.py showed the warm-started GNL predictor solve gains
-nothing from the load-harvested deflation space (21 iters both ways, +221 ms
-of re-Galerkin/W traffic).  That probe isolated ONE refresh; this script runs
+nothing from the load-harvested deflation space (21 iters both ways, plus
+re-Galerkin/W traffic).  That probe isolated ONE refresh; this script runs
 the FULL production collapse driver (GNLY, plastic regime, 499k dof default)
 with ``config.load_deflation`` on vs off and reports end-to-end wall time,
 per-phase timers and predictor iteration totals, alternating runs to cancel
 cache/thermal drift.
 
-Run on the real TPU from the repo root:
+Run on the GPU from the repo root:
     timeout 3600 python tools/load_defl_ab.py
 """
 

@@ -15,7 +15,8 @@ Experiments on the real 499k-dof bench connectivity (Morton solve space):
       elements per node-slot
   r7. plain segment_sum baseline (the thing ScatterPlan replaced)
 
-Chained fori_loop + host fetch throughout (see bw_probe.py header).
+Chained fori_loop + host fetch throughout (the state flows through every
+measured op, so nothing can be hoisted out of the loop).
 """
 
 import os

@@ -1,4 +1,4 @@
-"""Cost/benefit of the mixed-precision refinement tier on real hardware.
+"""Cost/benefit of the mixed-precision refinement tier on device.
 
 Three production-driver runs on the 27.8k-dof bench box (plastic GNL
 collapse, 5 steps past yield):
@@ -7,10 +7,10 @@ collapse, 5 steps past yield):
   B. f32 @ error_max 3e-9  — far below the f32 floor (~2e-7 relative):
      the watch escalates and the REFINEMENT tier converges in-run
   C. f64 @ error_max 3e-9  — what the pre-refinement failover would have
-     paid (the whole analysis in emulated f64)
+     paid (the whole analysis in f64)
 
 Plus the imperfect-column example at stock config as a regression row
-(it self-governed via clamp at round 3; refinement must not disturb it).
+(it self-governs via the clamp; refinement must not disturb it).
 
 Prints one JSON line per row to stdout; diagnostics to stderr.
 """

@@ -2,13 +2,12 @@
 
 The sharded backend's Newton residual rebuilds the internal force once per
 NR iteration: vmapped element stress update -> node reduce of the (ne, 30)
-element force rows in USER node order.  The reduce was `segment_sum`
-(docs/PERFORMANCE.md measured the same-shape Morton reduce at 19.6 ms vs
-the ScatterPlan's 8.5 at 499k dof); this probe measures the two reduce
-forms head-to-head on the real chip plus the full residual for context.
+element force rows in USER node order.  The reduce was `segment_sum`;
+this probe measures it against the per-shard ScatterPlan head-to-head on
+one device, plus the full residual for context.
 
-Measurement discipline (docs/PERFORMANCE.md): ITERS dependent applications
-chained inside one jit, result fetched, input perturbed per timed call.
+Measurement discipline: ITERS dependent applications chained inside one
+jit, result fetched to host.
 """
 
 import os
